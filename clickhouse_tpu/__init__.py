@@ -1,7 +1,7 @@
-"""clickhouse_tpu — a TPU-native vectorized query-execution engine.
+"""clickhouse_tpu — a vectorized query-execution engine on JAX/XLA.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
-column-oriented OLAP DBMS (ClickHouse, mounted at /root/reference).  See
+Built from scratch in JAX/XLA with the capabilities of the reference
+column-oriented OLAP DBMS (ClickHouse).  See
 SURVEY.md for the structural analysis and the design translations.
 """
 __version__ = "0.1.0"

@@ -63,7 +63,7 @@ def cmd_local(args):
                 else:
                     print(res)
         return 0
-    print("clickhouse-tpu local — TPU-native query engine (';' to run, "
+    print("clickhouse-tpu local — JAX/XLA query engine (';' to run, "
           "'exit' to quit)")
     _repl(lambda sql: s.execute(sql) if True else None)
     return 0
@@ -130,8 +130,8 @@ def cmd_benchmark(args):
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="clickhouse-tpu")
     parser.add_argument("--platform", default=None,
-                        help="force a JAX platform (cpu / tpu); helpful for "
-                             "quick local runs without a device")
+                        help="force a JAX platform (e.g. cpu for quick "
+                             "local runs without a device)")
     sub = parser.add_subparsers(dest="mode")
 
     p_local = sub.add_parser("local", help="in-process engine (REPL or -q)")
@@ -162,6 +162,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+    from .compile_cache import enable_compile_cache
+    enable_compile_cache()
     if not getattr(args, "fn", None):
         parser.print_help()
         return 1

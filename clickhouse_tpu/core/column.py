@@ -1,6 +1,6 @@
 """Device-resident columns.
 
-The TPU analog of the reference's ``IColumn`` hierarchy
+The device-array analog of the reference's ``IColumn`` hierarchy
 (src/Columns/IColumn.h:80).  Differences, by design (SURVEY.md §7):
 
 * Arrays are immutable JAX buffers — COW is free.
@@ -29,8 +29,8 @@ from . import dtypes as dt
 
 __all__ = ["Column", "Dictionary", "column_from_numpy", "PAD_MULTIPLE", "pad_to"]
 
-# Pad every column to a multiple of one VPU-friendly tile row (8 sublanes x
-# 128 lanes).  Keeps lax ops tiled and lets Pallas kernels assume alignment.
+# Pad every column's capacity up to a multiple of this, so that tables of
+# nearby row counts share array shapes and hit the same compiled program.
 PAD_MULTIPLE = 1024
 
 
@@ -51,8 +51,8 @@ class Dictionary:
     unify against small dictionaries vectorizes — the properties that keep
     100M-distinct string columns tractable.
 
-    `device_bytes()` exposes the values as an HBM-resident fixed-width byte
-    matrix — the TPU-native ColumnString (reference: offsets+chars
+    `device_bytes()` exposes the values as a device-resident fixed-width
+    byte matrix — the device ColumnString (reference: offsets+chars
     src/Columns/ColumnString.h): hot string predicates (startsWith /
     LIKE 'p%' / equality) compute per-UNIQUE on the device and reach rows
     through the code gather, so per-row work never leaves the chip.
@@ -63,7 +63,7 @@ class Dictionary:
 
     # device byte-matrix width cap (prefix ops beyond this fall back to host)
     DEVICE_BYTES_MAX_W = 64
-    # byte budget for HBM-resident dictionary bytes
+    # byte budget for device-resident dictionary bytes
     DEVICE_BYTES_BUDGET = 4 << 30
 
     def __init__(self, values: np.ndarray, sorted_: bool = False):
@@ -107,10 +107,10 @@ class Dictionary:
                 and self._hash_sorted[i] == hv else -1
         return self.index().get(value, -1)
 
-    # -- device byte matrix (TPU-native ColumnString view) --------------------
+    # -- device byte matrix (device ColumnString view) ------------------------
     # Cached as HOST numpy (trace-safe); jnp conversion happens at each use
     # site, where XLA hoists the matrix as a program constant — one buffer
-    # per compiled program, resident in HBM across calls.
+    # per compiled program, resident on the device across calls.
     def device_bytes(self):
         """-> (u8 matrix (U, W) np, byte lengths (U,) np int32, W) or
         None when over budget."""
@@ -255,10 +255,8 @@ class Column:
 def narrow_storage(data_np: np.ndarray) -> np.ndarray:
     """Pick the narrowest exact physical dtype for a host column.
 
-    TPU-first storage decision: XLA streams 32-bit data at HBM roofline but
-    64-bit arrays ~6x slower (measured v5e: i32 count 0.48 ms/100M vs i64
-    5.5 ms).  Columns therefore store the narrowest width that holds their
-    min/max; scans widen lazily (the cast fuses into consumers).  The moral
+    A scan is bound by the bytes it reads, so columns store the narrowest
+    width that holds their min/max; scans widen lazily (the cast fuses into consumers).  The moral
     equivalent of the reference's T64 codec (src/Compression/
     CompressionCodecT64.cpp) applied at the memory layout level.
     """
@@ -277,7 +275,8 @@ def narrow_storage(data_np: np.ndarray) -> np.ndarray:
                     and hi <= np.iinfo(cand).max:
                 return data_np.astype(cand)
     elif data_np.dtype == np.float64 and len(data_np):
-        f32 = data_np.astype(np.float32)
+        with np.errstate(over="ignore"):     # beyond f32: not lossless
+            f32 = data_np.astype(np.float32)
         if np.array_equal(f32.astype(np.float64), data_np):
             return f32
     return data_np

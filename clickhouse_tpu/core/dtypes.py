@@ -1,7 +1,7 @@
-"""Data types for the TPU-native query engine.
+"""Data types for the query engine.
 
 Role model: the reference's ``IDataType`` hierarchy (src/DataTypes/IDataType.h:29)
-with the crucial TPU-first difference that *all* device-resident data is
+with the crucial difference that *all* device-resident data is
 fixed-width.  Variable-width strings are dictionary-encoded at the storage
 boundary (the reference's LowCardinality concept, src/Columns/ColumnLowCardinality.h,
 promoted to the default string strategy per SURVEY.md §7 "Hard parts").
@@ -156,7 +156,7 @@ def Decimal(precision: int, scale: int) -> DType:
     Reference: src/DataTypes/DataTypesDecimal.h.  All precisions share the
     int64 physical type (Decimal128/256 values beyond ~1.8e18 scaled units
     are out of range — a documented cap; the reference's wide-decimal limbs
-    do not map to TPU-efficient layouts).
+    have no device layout here).
     """
     if not (0 <= scale <= precision):
         raise ValueError(f"Invalid Decimal scale {scale} for precision "
@@ -200,7 +200,7 @@ IPv4 = DType("IPv4", "uint32")
 _BY_NAME["Date32"] = Date
 # Wide integers map to 64-bit storage (documented cap: values beyond the
 # int64/uint64 range are out of scope — the reference's 128/256-bit limbs
-# have no TPU-efficient layout; most test traffic stays in range)
+# have no device layout here; most test traffic stays in range)
 _BY_NAME["Int128"] = DType("Int128", "int64")
 _BY_NAME["Int256"] = DType("Int256", "int64")
 _BY_NAME["UInt128"] = DType("UInt128", "uint64")

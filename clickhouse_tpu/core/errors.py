@@ -44,7 +44,7 @@ class CapacityError(ExecutionError):
     """Static capacity exceeded (groups/join matches beyond planned bound).
 
     Carries the setting that bounds the capacity and the observed need so the
-    session can re-plan at a higher capacity tier (the TPU analog of the
+    session can re-plan at a higher capacity tier (the static-shape analog of the
     reference's single-level -> two-level hash table conversion,
     src/Interpreters/Aggregator.cpp:91) instead of failing the query.
     """

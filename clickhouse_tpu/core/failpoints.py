@@ -1,6 +1,6 @@
 """Named fail points — SQL-toggleable fault injection.
 
-TPU-native analog of the reference's FailPoint machinery
+Analog of the reference's FailPoint machinery
 (ref: src/Common/FailPoint.h:32, SYSTEM ENABLE FAILPOINT): named hooks
 compiled into host-side control paths (part writes, merges, replication
 log application, exchanges, backups).  Disabled points cost one dict

@@ -192,8 +192,12 @@ class Settings:
 
     # -- out-of-core streaming (external aggregation analog) -----------------
     # scans larger than this stream through the engine chunk by chunk with
-    # mergeable aggregation states carried across chunks (the TPU translation
-    # of the reference's external aggregation, Aggregator.h writeToTemporaryFile)
+    # mergeable aggregation states carried across chunks (the device
+    # translation of the reference's external aggregation, Aggregator.h
+    # writeToTemporaryFile).  This, max_device_memory_bytes and
+    # stream_chunk_bytes are scaled to the device's memory when a session
+    # starts (with_device_budgets); the values here are for a 16 GiB device
+    # and stay in force where the backend reports no memory limit.
     max_device_block_bytes: int = 2 << 30
     # hard per-query device budget (memory governor): plans estimated over
     # this and not streamable raise MEMORY_LIMIT_EXCEEDED before dispatch
@@ -207,7 +211,7 @@ class Settings:
     force_grouping_standard_compatibility: int = 1
     stream_chunk_bytes: int = 512 << 20  # target chunk size when
     # streaming (device-side bit-unpack of packed transport keeps
-    # ~2.5x the chunk in flight; 1 GiB chunks brushed the HBM limit)
+    # ~2.5x the chunk in flight)
     # expanding joins (cross / inflating inner) emit blocks of at most this
     # many output rows; a block this size over the memory budget fails the
     # query (src/Core/Settings.cpp max_joined_block_size_rows)
@@ -336,12 +340,41 @@ class Settings:
             kwargs["extra"] = extra
         return dataclasses.replace(self, **kwargs)
 
+    def with_device_budgets(self, memory_stats: Optional[Dict[str, Any]]
+                            = None) -> "Settings":
+        """Scale the device budgets to the device's memory limit.
+
+        `memory_stats` defaults to the first device's
+        (`jax.Device.memory_stats()`).  Budgets the caller changed from
+        their defaults are kept; a backend that reports no `bytes_limit`
+        (the CPU) keeps the defaults.
+        """
+        if memory_stats is None:
+            import jax
+            memory_stats = jax.devices()[0].memory_stats()
+        limit = (memory_stats or {}).get("bytes_limit")
+        if not limit:
+            return self
+        changes = {name: int(limit * frac)
+                   for name, frac in _DEVICE_BUDGET_FRACTIONS.items()
+                   if getattr(self, name) == _DEFAULTS[name]}
+        return dataclasses.replace(self, **changes)
+
     def as_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
         d.pop("extra", None)
         for k, default in ACCEPTED_INERT.items():
             d[k] = (self.extra or {}).get(k, default)
         return d
+
+
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(Settings)}
+# share of the device's memory limit per budget: 12 : 2 : 0.5 of 16 GiB
+_DEVICE_BUDGET_FRACTIONS = {
+    "max_device_memory_bytes": 12 / 16,
+    "max_device_block_bytes": 2 / 16,
+    "stream_chunk_bytes": 0.5 / 16,
+}
 
 
 def _coerce(name: str, value: Any, target: type) -> Any:

@@ -11,7 +11,7 @@ batch actually commits; with 0 the insert returns immediately after
 enqueueing (fire-and-forget, the reference's "async_insert without wait"
 mode).
 
-TPU framing: batching matters MORE here than in the reference — every
+Why batching matters MORE here than in the reference — every
 committed part becomes an operand layout for compiled scans, so thousands
 of one-row parts would defeat the chunk-invariant streaming programs.
 The queue turns high-rate trickle inserts into a few large parts.

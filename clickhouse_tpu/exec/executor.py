@@ -2,7 +2,7 @@
 
 The role of QueryPlan::buildQueryPipeline + PipelineExecutor
 (src/Processors/QueryPlan/QueryPlan.cpp:166, Executors/PipelineExecutor.cpp:125)
-— with the fundamental TPU-first inversion (SURVEY.md §7): instead of a
+— with the fundamental inversion (SURVEY.md §7): instead of a
 dynamic processor graph driven by a thread scheduler, the whole plan is a
 single functional JAX computation over padded device arrays.  XLA is the
 scheduler; operators exchange *masked blocks* (validity masks instead of
@@ -460,7 +460,7 @@ def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
         elif cv.dtype.np_dtype.kind in ("i", "u", "b"):
             b = ranges.infer_bounds(e, ctx.field_bounds)
         # narrow 64-bit keys to i32 when bounds prove they fit: the grouping
-        # sort runs ~2x faster on 32-bit operands (measured v5e)
+        # sort then moves half the bytes per operand
         if b is not None and np.dtype(data.dtype).kind in ("i", "u") \
                 and np.dtype(data.dtype).itemsize == 8 \
                 and -2**31 <= b[0] and b[1] < 2**31:
@@ -487,7 +487,7 @@ def _exec_aggregate(node: L.AggregateNode, ctx: ExecContext) -> ExecBlock:
         node, child, ctx)
     holistic = any(a.fn.holistic for a in node.aggregates)
     if holistic or not all(a.fn.sum_only for a in node.aggregates):
-        # dense/MXU grouping serves sum-family aggregates only; holistic
+        # dense (matmul) grouping serves sum-family aggregates only; holistic
         # aggregates additionally need sort-rank group ids
         dims = None
 
@@ -625,7 +625,7 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
 
 
 def _dense_stage1(grouping, child: ExecBlock, gctx, per_agg_inputs):
-    """All dense (sum-family) aggregates batched into ONE MXU pass."""
+    """All dense (sum-family) aggregates batched into ONE matmul pass."""
     from ..ops import mxu_segsum
     cap_g = grouping.num_groups_cap
     base = child.valid & (grouping.group_ids < cap_g)
@@ -769,7 +769,7 @@ def _aggregate_two_stage(node: L.AggregateNode, child: ExecBlock, key_cvs,
                          ) -> ExecBlock:
     """Distributed mergeable aggregation: local partial states -> exchange
     (all_to_all by key hash; all_gather for the single global group) ->
-    regroup -> merge -> finalize.  The TPU translation of the reference's
+    regroup -> merge -> finalize.  The device-mesh translation of the reference's
     two-stage WithMergeableState flow (SURVEY.md §2.6)."""
     from ..parallel import exchange as ex
     s = ctx.settings
@@ -1347,7 +1347,7 @@ def _exec_limit_by(node: L.LimitByNode, ctx: ExecContext) -> ExecBlock:
     keep_sorted = mask_s & (pos_in_group >= node.offset) \
         & (pos_in_group < node.offset + node.n)
     # back to original row order via the inverse permutation (a sort, not a
-    # scatter: TPU scatter serializes)
+    # scatter)
     inv = jnp.argsort(g.perm)
     keep = keep_sorted[inv]
     return ExecBlock(child.cols, child.valid & keep, cap)
@@ -1525,8 +1525,8 @@ def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
 
     # Dense direct-address fast path: unique build keys in a small proven
     # range turn the join into one scatter + ONE int32 gather per payload
-    # word (probe-latency bound — the v5e speed-of-light for random
-    # probes).  Each word needs a sentinel value outside its proven range.
+    # word (bound by random-probe latency).  Each word needs a sentinel
+    # value outside its proven range.
     pr = None
     if (asof_tokens is None and len(rkeys) == 1
             and s.join_dense_gather
@@ -1688,7 +1688,7 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
                                          lkey_cvs, rkey_cvs):
             la, ra, lv, rv = _unify_join_keys(lk_cv, rk_cv, lcap, rcap)
             # narrow 64-bit keys to i32 when interval analysis proves both
-            # sides fit: i32 sort operands run ~2x faster on TPU
+            # sides fit: half the bytes per sort operand
             if np.dtype(la.dtype).kind in ("i", "u") \
                     and np.dtype(la.dtype).itemsize == 8:
                 lb = ranges.infer_bounds(le, ctx.field_bounds)

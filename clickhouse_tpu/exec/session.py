@@ -79,7 +79,7 @@ class Session:
                  catalog: Optional[Catalog] = None,
                  data_path: Optional[str] = None,
                  config_path: Optional[str] = None):
-        self.settings = settings or Settings()
+        self.settings = (settings or Settings()).with_device_budgets()
         self.catalog = catalog or Catalog()
         self._config_path = config_path
         if data_path:
@@ -935,7 +935,7 @@ class Session:
         return cols
 
     # -- compiled execution (whole-query jit) --------------------------------
-    # One XLA program per query: the TPU-first replacement for the reference's
+    # One XLA program per query: the replacement for the reference's
     # per-chunk pipeline dispatch.  Re-analysis is cheap and runs every time
     # (it resolves subqueries against current data); only XLA compilation is
     # cached, keyed by (sql, settings, table versions/capacities).
@@ -2406,7 +2406,7 @@ class Session:
                                    ("default", dtm.String)])
             from ..core.settings import (ACCEPTED_INERT, SETTING_DOCS,
                                          Settings)
-            defaults = Settings().as_dict()
+            defaults = Settings().with_device_budgets().as_dict()
             items = sorted(self.settings.as_dict().items())
 
             def doc(k):
@@ -3139,7 +3139,7 @@ def _explain_pipeline(node, indent: int) -> str:
         if not node.keys:
             detail = " (without key: masked reductions)"
         else:
-            detail = " (dense MXU / sort grouping by key bounds)"
+            detail = " (dense matmul / sort grouping by key bounds)"
     lines = ["  " * indent + name + detail]
     for c in node.children():
         lines.append(_explain_pipeline(c, indent + 1))

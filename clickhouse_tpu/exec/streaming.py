@@ -1,7 +1,7 @@
 """Out-of-core streaming execution: tables larger than the device-block
 budget stream through the engine chunk by chunk.
 
-The TPU translation of the reference's external aggregation
+The device translation of the reference's external aggregation
 (src/Interpreters/Aggregator.h:273 writeToTemporaryFile +
 src/Interpreters/TemporaryDataOnDisk.cpp): instead of spilling hash-table
 state to disk and merging bucket streams, the plan is split at the
@@ -19,7 +19,7 @@ this is the sequential twin of the distributed two-stage exchange
 (executor._aggregate_two_stage).  Probe-side joins against small build
 tables stream for free: the build block is an ordinary argument of the
 per-chunk program, so grace-style partitioning is only needed when BOTH
-sides exceed HBM.
+sides exceed device memory.
 
 Chunks come from host RAM (host memory plays the role disk plays for the
 reference) with chunk-invariant physical dtypes and global dictionaries
@@ -940,8 +940,8 @@ def _chunk_block(chunk_args, src, table) -> Block:
         if pk is not None:
             # bit-packed transport: unpack inside the traced program.
             # Strided u32 byte lanes, never a widened (cap, bpp) matrix —
-            # a reshape+astype formulation materialized 8x-the-bytes
-            # intermediates at 100M-row chunks and blew HBM.
+            # a reshape+astype formulation materializes 8x-the-bytes
+            # intermediates at 100M-row chunks.
             w4, off, bpp = pk
             n8 = data.shape[0]
             lanes = [jax.lax.slice(data, (k,), (n8,), (bpp,))
@@ -1193,10 +1193,15 @@ class _StreamProgramBase:
         StreamTransfer = host->device device_put (feeder thread, overlapped
         with compute), StreamHostPrep = chunk slice/encode, StreamStepWait =
         consumer starvation (transfer-bound when high), StreamLoop = whole
-        chunk loop wall, StreamFinalize = merge/fin + materialize."""
+        chunk loop wall, StreamFinalize = merge/fin + materialize.  The
+        StreamedPackedColumns event counts columns that rode the link
+        bit-packed."""
         from .profiler import record_processor
         s = self.io_stats
         rows = self.total_rows
+        n_packed = len(getattr(self.src, "packed", {}))
+        session.profile_events["StreamedPackedColumns"] = \
+            session.profile_events.get("StreamedPackedColumns", 0) + n_packed
         record_processor(session, "StreamTransfer", s["transfer_s"],
                          input_rows=rows)
         if s["prep_s"]:

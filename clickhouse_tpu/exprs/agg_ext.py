@@ -15,7 +15,7 @@ import numpy as np
 
 from ..core import dtypes as dt
 from ..core.errors import TypeError_
-from ..ops import agg_ops, sort_ops
+from ..ops import agg_ops, hash_ops, sort_ops
 from .aggregates import AggregateFunction, AvgAgg
 from .expr import ColVal
 
@@ -445,7 +445,7 @@ class DistinctAgg(AggregateFunction):
                                    ctx.num_groups_cap,
                                    secondary=[notm, value])
         m1 = jnp.logical_not(g1.take(notm))
-        v1 = g1.take(value)
+        v1 = hash_ops.sortable_bits(g1.take(value))[0]       # bit equality
         prev_same = jnp.concatenate(
             [jnp.zeros((1,), jnp.bool_),
              (v1[1:] == v1[:-1]) & (g1.group_ids[1:] == g1.group_ids[:-1])])

@@ -8,8 +8,8 @@ AggregateFunctionTopK.h weighted variant).
 The sequential per-user event scans of the reference become K segmented
 min-reductions over time-sorted groups (K = number of funnel steps): pass k
 finds, per group, the earliest event satisfying condition k that is later
-than the pass-(k-1) timestamp — whole-column ops that XLA maps onto the
-VPU, no per-group Python loop.
+than the pass-(k-1) timestamp — whole-column ops that XLA vectorizes, no
+per-group Python loop.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Sketch and array-valued aggregate functions.
 
-TPU-native takes on the reference's heavy aggregate tail:
+Device-array takes on the reference's heavy aggregate tail:
 
 * ``groupArray`` / ``groupUniqArray`` (src/AggregateFunctions/
   AggregateFunctionGroupArray.h) — per-group value collection into padded
@@ -13,7 +13,7 @@ TPU-native takes on the reference's heavy aggregate tail:
   entropy from run lengths of the (key, value)-sorted rows.
 * ``uniq`` / ``uniqCombined`` / ``uniqHLL12`` (src/AggregateFunctions/
   AggregateFunctionUniq.h, uniqCombined.h) — HyperLogLog with a mergeable,
-  storable state.  The TPU twist: per-group registers live as a dense
+  storable state.  The twist: per-group registers live as a dense
   (num_groups, m/8) uint64 limb matrix, 8 one-byte registers per limb.
   Update never scatters: rows are sorted by (key, register, -rho) so each
   (key, register) run's head carries the register maximum, and limb values
@@ -94,7 +94,7 @@ class GroupArrayAgg(AggregateFunction):
                                        ctx.num_groups_cap,
                                        secondary=[notm, value])
             m1 = jnp.logical_not(g1.take(notm))
-            v1 = g1.take(value)
+            v1 = hash_ops.sortable_bits(g1.take(value))[0]   # bit equality
             prev_same = jnp.concatenate(
                 [jnp.zeros((1,), jnp.bool_),
                  (v1[1:] == v1[:-1]) & (g1.group_ids[1:] == g1.group_ids[:-1])])

@@ -10,14 +10,14 @@ through the exact machinery of regular blocks — the property behind two-stage
 distributed aggregation (QueryProcessingStage::WithMergeableState).
 
 All reductions go through Grouping.reduce (ops/agg_ops.py) — segmented scans
-for sort grouping, MXU matmuls for dense, plain reductions for global — so
-no aggregate ever issues a TPU scatter.
+for sort grouping, one-hot matmuls for dense, plain reductions for global — so
+no aggregate ever issues a scatter.
 
 Combinators (-If; reference: AggregateFunctionCombinatorFactory) wrap the row
 mask.  `holistic` functions (uniqExact, quantileExact, median) need all rows
 of a group co-located; the distributed planner repartitions by key for them
 (SURVEY.md §2.6 partition-parallel aggregation).  `sum_only` functions can
-run on the dense/MXU grouping.
+run on the dense (matmul) grouping.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import numpy as np
 
 from ..core import dtypes as dt
 from ..core.errors import NotImplementedError_, TypeError_, UnknownFunction
-from ..ops import agg_ops, sort_ops
+from ..ops import agg_ops, hash_ops, sort_ops
 from .expr import ColVal
 
 __all__ = ["AggregateFunction", "get_aggregate", "is_aggregate_name",
@@ -456,7 +456,9 @@ class UniqExactAgg(AggregateFunction):
                                    ctx.num_groups_cap,
                                    secondary=[notm, value])
         mask_s = jnp.logical_not(g2.take(notm))
-        v_s = g2.take(value)
+        # distinct by bit pattern (float == would merge -0.0 with +0.0 and
+        # split equal NaNs)
+        v_s = hash_ops.sortable_bits(g2.take(value))[0]
         prev_same = jnp.concatenate(
             [jnp.zeros((1,), jnp.bool_),
              (v_s[1:] == v_s[:-1]) & (g2.group_ids[1:] == g2.group_ids[:-1])])
@@ -1048,7 +1050,7 @@ class StateAgg(AggregateFunction):
 
     @property
     def sum_only(self):
-        return False          # dense/MXU stage cannot pack states
+        return False          # dense (matmul) stage cannot pack states
 
     def result_type(self):
         return dt.AggregateState(self.inner.name, self.inner.arg_types,

@@ -186,7 +186,7 @@ class BoundArrayLambda(BoundExpr):
     """Higher-order array function: arrayMap/Filter/Exists/All/Count/Sum...
 
     The lambda body is an ordinary bound expression evaluated ONCE over the
-    whole (rows, max_len) element matrix — the TPU translation of the
+    whole (rows, max_len) element matrix — the vectorized translation of the
     reference's per-row lambda loop (src/Functions/array/FunctionArrayMapped.h):
     element-wise jnp ops broadcast over the matrix, outer row columns enter
     as (rows, 1) so they broadcast across elements.

@@ -2190,23 +2190,23 @@ def _vec_pair(args):
     return da * mask, db_ * mask, mask, db_
 
 
-# Brute-force vector search on the MXU: for a BIG (N, W) vector column
-# against one query vector, distances become three (N,W)x(W,) matmuls —
-# a @ q, (a*a) @ 1, mask @ (q*q) — which XLA tiles onto the systolic array
-# in f32 (vs the f64 elementwise+VPU-reduce exact path used for small N /
+# Brute-force vector search as matrix products: for a BIG (N, W) vector
+# column against one query vector, distances become (N,W)x(W,) products —
+# a @ q and (a*a) @ 1, plus the masked query norm — computed in f32 at
+# full precision (vs the f64 elementwise exact path used for small N /
 # ragged semantics).  ORDER BY cosineDistance(vec, [..]) LIMIT k then runs
-# matmul -> device top-k: the TPU-native answer to the reference's HNSW
+# product -> device top-k: the answer to the reference's HNSW
 # vector-similarity index (MergeTreeIndexVectorSimilarity.cpp) — at
-# moderate scale brute force on the MXU beats graph walks.
-_MXU_DISTANCE_MIN_ROWS = 1 << 16
+# moderate scale brute force on the device beats graph walks.
+_MATMUL_DISTANCE_MIN_ROWS = 1 << 16
 
 
-def _mxu_dist_parts(args):
-    """Raw-layout MXU distance components, avoiding every (N, W) f64
-    materialization (the padded matrix is read in f32 exactly twice):
-    rows are zero-padded past their length, so `a @ q` and `(a*a) @ 1`
-    need no mask, and the per-row masked query norm is a gather into the
-    cumulative sum of q² by row length."""
+def _matmul_dist_parts(args):
+    """Raw-layout distance components as matrix products, avoiding every
+    (N, W) f64 materialization (the padded matrix is read in f32 exactly
+    twice): rows are zero-padded past their length, so `a @ q` and
+    `(a*a) @ 1` need no mask, and the per-row masked query norm is the
+    cumulative sum of q² at the row's length."""
     from .functions import _array_arg
     a0 = _array_arg(args[0])
     b0 = _array_arg(args[1])
@@ -2214,7 +2214,7 @@ def _mxu_dist_parts(args):
     db = b0.data if getattr(b0.data, "ndim", 0) == 2 \
         else b0.data[None, :]
     if da is None or db.shape[0] != 1 \
-            or da.shape[0] < _MXU_DISTANCE_MIN_ROWS:
+            or da.shape[0] < _MATMUL_DISTANCE_MIN_ROWS:
         return None
     W = max(da.shape[-1], db.shape[-1])
     if da.shape[-1] < W:
@@ -2223,34 +2223,36 @@ def _mxu_dist_parts(args):
         db = jnp.pad(db, ((0, 0), (0, W - db.shape[-1])))
     af = da.astype(jnp.float32)
     q = db[0].astype(jnp.float32)
-    dot = af @ q
-    anorm2 = (af * af) @ jnp.ones((W,), jnp.float32)
+    # HIGHEST: a default-precision f32 product may run in TF32 (about
+    # three decimal digits), enough to reorder the top-k against an f32
+    # reference
+    hi = jax.lax.Precision.HIGHEST
+    dot = jnp.matmul(af, q, precision=hi)
+    anorm2 = jnp.matmul(af * af, jnp.ones((W,), jnp.float32), precision=hi)
     qq_cum = jnp.cumsum(q * q)
     lens = a0.lengths
     if lens is None or getattr(lens, "ndim", 0) == 0:
         bnorm2 = jnp.broadcast_to(qq_cum[-1], dot.shape)
     else:
-        # per-row masked query norm WITHOUT a row-count gather (a 10M-row
-        # gather into the 128-entry cumsum ran at probe speed, ~100 ms —
-        # the real r04 Q8 gap); the one-hot compare fuses into one
-        # read-lens pass
+        # per-row masked query norm WITHOUT a row-count gather into the
+        # W-entry cumsum; the one-hot compare fuses into one read-lens
+        # pass
         sel = (lens[:, None].astype(jnp.int32)
                == (jnp.arange(W, dtype=jnp.int32) + 1)[None, :])
         bnorm2 = jnp.sum(qq_cum[None, :].astype(jnp.float32)
                          * sel.astype(jnp.float32), axis=1)
-    # stay in f32: an f64 upcast here runs the sqrt/divide tail in
-    # emulated double-float on the VPU — ~10x the whole pipeline's cost
-    # at 10M rows (the r04 Q8 gap).  The matmuls are f32 regardless.
+    # stay in f32: an f64 upcast here would double the bytes of the
+    # sqrt/divide tail over all N rows; the products are f32 regardless.
     return dot, anorm2, bnorm2
 
 
-def _register_distance(name, fn, mxu=None):
+def _register_distance(name, fn, matmul=None):
     def exec_(args, out):
         st = dt.remove_nullable(out).jnp_dtype
-        if mxu is not None:
-            parts = _mxu_dist_parts(args)
+        if matmul is not None:
+            parts = _matmul_dist_parts(args)
             if parts is not None:
-                return ColVal(out, mxu(*parts).astype(st), _andv(args))
+                return ColVal(out, matmul(*parts).astype(st), _andv(args))
         a, b, m, _braw = _vec_pair(args)
         return ColVal(out, fn(a, b, m).astype(st), _andv(args))
 
@@ -2268,22 +2270,22 @@ def _register_distance(name, fn, mxu=None):
 
 _register_distance("L2Distance",
                    lambda a, b, m: jnp.sqrt(jnp.sum((a - b) ** 2, -1)),
-                   mxu=lambda dot, a2, b2: jnp.sqrt(
+                   matmul=lambda dot, a2, b2: jnp.sqrt(
                        jnp.maximum(a2 - 2.0 * dot + b2, 0.0)))
 _register_distance("L2SquaredDistance",
                    lambda a, b, m: jnp.sum((a - b) ** 2, -1),
-                   mxu=lambda dot, a2, b2: jnp.maximum(
+                   matmul=lambda dot, a2, b2: jnp.maximum(
                        a2 - 2.0 * dot + b2, 0.0))
 _register_distance("L1Distance",
                    lambda a, b, m: jnp.sum(jnp.abs(a - b), -1))
 _register_distance("LinfDistance",
                    lambda a, b, m: jnp.max(jnp.abs(a - b), -1))
 _register_distance("dotProduct", lambda a, b, m: jnp.sum(a * b, -1),
-                   mxu=lambda dot, a2, b2: dot)
+                   matmul=lambda dot, a2, b2: dot)
 _register_distance("cosineDistance", lambda a, b, m: 1.0 - jnp.sum(
     a * b, -1) / jnp.maximum(jnp.sqrt(jnp.sum(a * a, -1))
                              * jnp.sqrt(jnp.sum(b * b, -1)), 1e-300),
-    mxu=lambda dot, a2, b2: 1.0 - dot / jnp.maximum(
+    matmul=lambda dot, a2, b2: 1.0 - dot / jnp.maximum(
         jnp.sqrt(a2) * jnp.sqrt(b2), jnp.finfo(dot.dtype).tiny))
 
 

@@ -248,7 +248,7 @@ void chn_hash64(const uint64_t* src, long long n, uint64_t* dst) {
 
 
 // ----------------------------------------------------------- codec family
-// Self-designed TPU-engine formats covering the reference codec set
+// Self-designed engine formats covering the reference codec set
 // (src/Compression/CompressionCodecDelta.cpp, ...DoubleDelta.cpp,
 // ...Gorilla.cpp, ...T64.cpp).  Formats are byte-exact round-trip codecs,
 // not the reference's wire formats.

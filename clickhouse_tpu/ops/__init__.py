@@ -1,15 +1,10 @@
 """Device operator kernels (the IColumn vectorized-primitive layer).
 
-On custom Pallas kernels — a deliberate non-choice, measured: the engine's
-hot primitives are (a) streaming masked reductions (filter+count: XLA
-reaches 0.92 of the HBM roofline on v5e, BENCH_r02), (b) large multi-operand
-sorts (lax.sort lowers to the TPU's tiled bitonic/merge network — the same
-schedule a hand kernel would write), and (c) probe gathers (memory-latency
-bound; no kernel can beat the hardware gather path).  A hand-tiled Pallas
-reduction kernel was built and benchmarked in round 2 (scratch/q1_profile);
-it did not beat XLA's fusion at any benchmark shape, so the production path
-stays pure XLA and the kernel was removed.  Pallas re-enters when a
-primitive appears that XLA demonstrably schedules badly (e.g. fused
-multi-column radix partitioning), not before.
+Every operator here is plain `jax.numpy` / `lax`, compiled by XLA.  The hot
+primitives are (a) streaming masked reductions (filter+count), which XLA
+fuses into one pass over the column, (b) large multi-operand sorts
+(`lax.sort`), and (c) probe gathers, which are bound by memory latency.  A
+hand-written kernel enters only for a primitive that is on a measured hot
+path and that XLA demonstrably schedules far from the device's roofline.
 """
 from . import hash_ops, filter_ops, agg_ops, sort_ops, join_ops

@@ -1,20 +1,20 @@
 """Grouping machinery: sort-based, dense direct-array, and trivial GROUP BY.
 
-TPU-native replacement for the reference Aggregator's 143 hash-table variants
+Replacement for the reference Aggregator's 143 hash-table variants
 (src/Interpreters/Aggregator.h:71, AggregatedDataVariants.h:20-137).  Three
-grouping kinds, all scatter-free (TPU scatter serializes; see scan_ops.py):
+grouping kinds, all scatter-free (see scan_ops.py):
 
   * sort    -- generic: multi-operand device sort, segment boundaries,
                reductions via segmented scans + searchsorted gathers;
   * dense   -- provably-small key space (interval analysis): slot computed
-               from the key; sum/count reductions as MXU one-hot matmuls
+               from the key; sum/count reductions as one-hot matmuls
                (mxu_segsum.py) — the FixedHashMap analog;
   * trivial -- GROUP BY (): plain masked whole-array reductions
                (Aggregator::executeWithoutKey analog).
 
 The mergeable-state algebra (reference: IAggregateFunction::merge +
 WithMergeableState) is preserved: states are ordinary columns; the
-distributed two-stage aggregation re-groups and merges them after an ICI
+distributed two-stage aggregation re-groups and merges them after an
 all_to_all keyed by bucket.
 """
 from __future__ import annotations
@@ -67,8 +67,8 @@ class Grouping:
 
         Registered payloads (carried through the grouping sort) are free;
         everything else is permuted.  Large arrays permute via a 2-operand
-        sort by the inverse permutation — TPU random gathers cost ~20-35 ns
-        per element, so a streaming sort beats x[perm] from ~2^18 rows.
+        sort by the inverse permutation: a streaming sort instead of a
+        random gather x[perm] from ~2^18 rows.
         Results are cached by identity (one permute per distinct array).
         """
         if self.perm is None:
@@ -208,14 +208,14 @@ def group_by_sort(keys: Sequence[jax.Array], row_valid: jax.Array,
     secondary -- extra sort operands ordering rows *within* groups without
                  affecting boundaries (holistic aggregates)
     payloads  -- arrays carried into sorted order for free (registered so
-                 later Grouping.take of the same array costs nothing; one
-                 extra sort operand beats a 100M random gather ~5x on v5e)
+                 later Grouping.take of the same array costs nothing: one
+                 extra sort operand instead of a random gather)
     """
     cap = keys[0].shape[0]
     rowid = jnp.arange(cap, dtype=jnp.int32)
     invalid = jnp.logical_not(row_valid)
-    # floats enter the sort as bit patterns (raw f64 operands at 100M crash
-    # the TPU compile helper) and are decoded on the way out
+    # floats enter the sort as order-mapped bit patterns (exact key
+    # equality, -0.0 != +0.0) and are decoded on the way out
     encoded, decoders = [], []
     for a in list(keys) + list(secondary) + list(payloads):
         enc, dec = hash_ops.sortable_bits(a)

@@ -1,6 +1,6 @@
 """Filter: predicate mask -> compacted block.
 
-TPU-native replacement for FilterTransform + IColumn::filter
+Replacement for FilterTransform + IColumn::filter
 (src/Processors/Transforms/FilterTransform.cpp:128, SIMD compaction loops at
 src/Columns/ColumnsCommon.cpp:145-235).  Output capacity equals input capacity
 (static shapes); the surviving-row count is a device scalar — no host sync on
@@ -27,9 +27,9 @@ def gather_compaction_indices(mask: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """Source row index for each output slot of a stream compaction.
 
     Returns (src_idx, count): output slot j takes input row src_idx[j]
-    (garbage for j >= count).  Gather-only formulation — TPU scatter
-    serializes, so the usual scatter-compaction is inverted into
-    "for output j, binary-search the j-th set bit" (cumsum + searchsorted).
+    (garbage for j >= count).  Gather-only formulation: the usual
+    scatter-compaction is inverted into "for output j, binary-search the
+    j-th set bit" (cumsum + searchsorted).
     """
     c = jnp.cumsum(mask.astype(jnp.int64))
     count = c[-1]

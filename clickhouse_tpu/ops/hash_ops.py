@@ -3,8 +3,8 @@
 Role of the reference's per-type hash methods (IColumn::updateHashWithValue /
 WeakHash, src/Columns/IColumn.h:297) and the hash used for shard routing and
 hash tables.  We use a splitmix64-style finalizer — a strong, multiply/xor
-mixer that vectorizes cleanly on the VPU (64-bit ops are lane-pair emulated on
-TPU, still far cheaper than the gather traffic it feeds).
+mixer that vectorizes cleanly and is far cheaper than the gather traffic it
+feeds.
 """
 from __future__ import annotations
 
@@ -33,15 +33,8 @@ def hash64(x: jax.Array) -> jax.Array:
 
 
 def bitcast_f64_to_u64(x: jax.Array) -> jax.Array:
-    """f64 -> u64 bit pattern via two u32 bitcasts (CPU/IEEE backends only).
-
-    TPU cannot extract f64 bits at all: its X64-rewriting pass implements no
-    narrowing 64-bit bitcast-convert, and device "f64" is a float32 pair
-    (double-float) whose values are not IEEE doubles in the first place
-    (measured on v5e: f32 exponent range, ~48-bit precision).  All engine
-    sort/hash/equality paths therefore go through `f64_token`, which has a
-    TPU-native encoding; this raw-bits helper remains for IEEE backends.
-    """
+    """f64 -> u64 IEEE bit pattern (via two u32 bitcasts, which XLA lowers
+    on every backend)."""
     halves = jax.lax.bitcast_convert_type(x, jnp.uint32)  # (..., 2)
     lo = halves[..., 0].astype(jnp.uint64)
     hi = halves[..., 1].astype(jnp.uint64)
@@ -79,53 +72,23 @@ def f64_token(x: jax.Array) -> jax.Array:
 
     This is THE device representation of float keys for sorting, grouping,
     joining and hashing (role of the raw 8-byte key in the reference's hash
-    tables, src/Columns/ColumnVector.h updateHashWithValue — adapted to what
-    the accelerator can actually do):
-
-    * CPU (IEEE f64): exact bit pattern, order-mapped so unsigned-ascending
-      equals float total order.  -0.0 < +0.0 (distinct keys, like the
-      reference's byte-keyed hash tables), NaNs sort last.
-    * TPU: device f64 is a float32 pair (hi, lo) — the X64 rewrite emulates
-      doubles as double-floats.  The token is the lexicographic pair
-      (order32(hi) << 32) | order32(lo), where hi = f32(x), lo = f32(x - hi)
-      recovers the exact on-device pair (the subtraction is exact in
-      double-float arithmetic).  Lexicographic pair order == numeric order
-      because hi is the f32 rounding of x.  No 64-bit bitcast anywhere.
-
-    Tokens are platform-internal (they never leave the device program), so
-    the CPU/TPU encodings needn't match each other — each is injective and
-    order-preserving on its own backend's representable values.
+    tables, src/Columns/ColumnVector.h updateHashWithValue): the exact IEEE
+    bit pattern, order-mapped so unsigned-ascending equals the float total
+    order.  Every distinct bit pattern is its own key: -0.0 < +0.0 (distinct
+    keys, like the reference's byte-keyed hash tables), denormals and
+    values beyond the f32 range keep all 53 bits, equal-representation
+    NaNs collapse into one key and positive NaNs sort last.
     """
-    if jax.default_backend() == "cpu":
-        bits = bitcast_f64_to_u64(x)
-        sign = bits >> jnp.uint64(63)
-        return jnp.where(sign == 1, ~bits, bits | jnp.uint64(1 << 63))
-    hi = x.astype(jnp.float32)
-    finite = jnp.isfinite(hi)
-    # Keys differing only below the double-float precision (~2^-48
-    # relative; f32-only below |x|~2^-102, where the pair's lo half is an
-    # f32 denormal that the VPU's DAZ flushes in any op) share a token —
-    # that is the device's own f64 equality granularity.
-    lo = jnp.where(finite, (x - hi.astype(jnp.float64)).astype(jnp.float32),
-                   jnp.float32(0))
-    hb = jax.lax.bitcast_convert_type(hi, jnp.uint32)
-    lb = jax.lax.bitcast_convert_type(lo, jnp.uint32)
-    return (_order_map32(hb) << jnp.uint64(32)) | _order_map32(lb)
+    bits = bitcast_f64_to_u64(x)
+    sign = bits >> jnp.uint64(63)
+    return jnp.where(sign == 1, ~bits, bits | jnp.uint64(1 << 63))
 
 
 def f64_from_token(t: jax.Array) -> jax.Array:
-    """Inverse of `f64_token` (exact on each backend's representable set)."""
-    if jax.default_backend() == "cpu":
-        sign = t >> jnp.uint64(63)
-        bits = jnp.where(sign == 1, t & ~jnp.uint64(1 << 63), ~t)
-        return bitcast_u64_to_f64(bits)
-    hi = _bitcast_u32_to_f32(_order_unmap32(t >> jnp.uint64(32)))
-    lo = _bitcast_u32_to_f32(_order_unmap32(t & jnp.uint64(0xFFFFFFFF)))
-    hi_f = hi.astype(jnp.float64)
-    # lo == 0: return hi alone so its value is untouched.  (-0.0 still
-    # decodes as +0.0 — the device's f32->f64 widening drops the sign — a
-    # display-only deviation; -0.0 and +0.0 remain distinct as tokens.)
-    return jnp.where(lo == 0, hi_f, hi_f + lo.astype(jnp.float64))
+    """Inverse of `f64_token` (bit-exact)."""
+    sign = t >> jnp.uint64(63)
+    bits = jnp.where(sign == 1, t & ~jnp.uint64(1 << 63), ~t)
+    return bitcast_u64_to_f64(bits)
 
 
 def _f32_from_token(t: jax.Array) -> jax.Array:
@@ -133,20 +96,20 @@ def _f32_from_token(t: jax.Array) -> jax.Array:
 
 
 def f32_token(x: jax.Array) -> jax.Array:
-    """f32 counterpart of `f64_token` (same token layout, lo half zero)."""
+    """f32 counterpart of `f64_token`: the order-mapped 32-bit pattern in
+    the high half of a u64 (low half zero)."""
     hb = jax.lax.bitcast_convert_type(x, jnp.uint32)
     return _order_map32(hb) << jnp.uint64(32)
 
 
 def sortable_bits(x: jax.Array):
-    """(encoded, decoder) so floats never enter lax.sort as raw operands.
+    """(encoded, decoder) so float keys sort, group and join as integers.
 
-    64-bit float sort operands at ~100M rows crash the TPU compile helper
-    (measured); integer tokens sort fine.  The encoding is `f64_token` /
-    `f32_token` — injective (equal tokens <=> equal keys, -0.0 and +0.0
-    distinct, equal-representation NaNs collapse into one, matching the
-    reference's byte-keyed hash-table GROUP BY / join semantics) and
-    order-preserving.  decoder is None for non-floats.
+    The encoding is `f64_token` / `f32_token`: injective (equal tokens <=>
+    equal bit patterns, -0.0 and +0.0 distinct, equal-representation NaNs
+    collapse into one, matching the reference's byte-keyed hash-table
+    GROUP BY / join semantics) and order-preserving.  decoder is None for
+    non-floats.
     """
     if x.dtype == jnp.float64:
         return f64_token(x), f64_from_token
@@ -164,7 +127,7 @@ def _to_u64(x: jax.Array) -> jax.Array:
         # Wrapping conversion == bit pattern for signed types.
         return x.astype(jnp.uint64)
     if dt == jnp.float64:
-        return f64_token(x)      # injective per backend; see f64_token
+        return f64_token(x)      # injective; see f64_token
     if dt == jnp.float32:
         return f32_token(x)
     raise TypeError(f"hash64: unsupported dtype {dt}")

@@ -1,17 +1,25 @@
-"""Exact segment sums as MXU matmuls (factored one-hot histograms).
+"""Exact segment sums as matrix products (factored one-hot histograms).
 
 For a provably-small group count S, segment-sum becomes a matrix product:
 factor the slot id into (hi, lo) digits, build two one-hot operands, and
-contract  result[hi, lo] = sum_rows (onehot_hi * value)^T @ onehot_lo  on the
-MXU — the systolic array does the "scatter".  Measured ~75ms/67M rows vs
-8.5s for XLA scatter-add on TPU v5e.
+contract  result[hi, lo] = sum_rows (onehot_hi * value)^T @ onehot_lo  —
+the matrix unit does the "scatter".  Whether this beats an atomic
+scatter-add (`jax.ops.segment_sum`) on a given device is a measurement,
+not an assumption; both give the same integers.
 
-Exactness: f32 matmul accumulators are exact for integer values < 2^24, so
-  * counts: per-chunk counts <= chunk size (65536) — exact; accumulated f64;
+Exactness invariant: every product multiplies only 0/1 one-hot entries and
+8-bit limbs (0..255), and accumulates in float32 per chunk of at most
+65536 rows, so every partial sum is an integer below 2^24.  Such operands
+are exact in any reduced-precision matrix mode a device may pick for f32
+inputs (TF32 keeps 11 significant bits, bf16 keeps 8, and an integer in
+0..255 needs at most 8), and the f32 accumulator is exact below 2^24.
+So these products need no `precision` argument:
+  * counts: per-chunk counts <= chunk size (65536) — exact;
   * integer sums: values biased to unsigned and split into 8-bit limbs
     (limb sums per chunk <= 65536*255 < 2^24 — exact); limbs recombined in
     modular u64 arithmetic, bias removed with the exact counts.
-Float sums are served by the sort path (scan_ops) instead.
+Cross-chunk carries are integer (i32/u64).  Float sums are served by the
+sort path (scan_ops) instead.
 """
 from __future__ import annotations
 
@@ -30,8 +38,8 @@ _CHUNK = 1 << 16
 
 
 def _factor(S: int) -> Tuple[int, int]:
-    # Balanced factorization: (32, 32) measured ~6x faster than (8, 128) at
-    # S=1024 on v5e (narrow one-hot operands waste lanes).
+    # Balanced factorization: S=1024 becomes (32, 32) rather than (8, 128),
+    # keeping both one-hot operands equally wide.
     s2 = 1 << ((max(S - 1, 1).bit_length() + 1) // 2)
     s2 = max(8, min(s2, 128))
     s1 = (S + s2 - 1) // s2
@@ -180,9 +188,8 @@ def mxu_counts_and_sums(ids: jax.Array, mask: jax.Array,
     int_values -- list of (values, is_signed); values any integer dtype
     bounds     -- optional proven (lo, hi) per value (fewer limbs, no bias)
 
-    Per-chunk partial sums are exact in the f32 MXU accumulator (< 2^24);
-    cross-chunk carries are integer (i32/u64) — f64 is emulated on TPU and
-    would dominate both compile and run time.
+    Per-chunk partial sums are exact in the f32 accumulator (< 2^24; see
+    the module docstring); cross-chunk carries are integer (i32/u64).
     """
     assert S <= MAX_DENSE_GROUPS
     s1, s2 = _factor(S)

@@ -1,8 +1,7 @@
 """Scatter-free segment reductions over key-sorted rows.
 
-TPU scatter serializes updates (measured ~85ns/row — 8.5s per 100M-row
-segment_sum), so the engine never scatters on hot paths.  After the rows are
-key-sorted (sort: ~0.5s/100M — cheap), every per-group reduction becomes:
+The engine does not scatter on hot paths: after the rows are key-sorted,
+every per-group reduction becomes:
 
   * sums: plain cumsum + boundary differences (exact modulo 2^64 for
     integers; for floats XLA's native log-depth prefix sum behaves like
@@ -15,8 +14,8 @@ key-sorted (sort: ~0.5s/100M — cheap), every per-group reduction becomes:
     array (ops/search.py).
 
 `lax.associative_scan` is deliberately absent: over ~33M-element operands it
-OOM-kills the XLA compile helper on TPU (measured), so every reduction here
-lowers to native sort/cumsum/cummax primitives only.  (running_reduce — the
+is costly to compile, so every reduction here lowers to native
+sort/cumsum/cummax primitives only.  (running_reduce — the
 window-function path — still uses associative_scan; window partitions are
 far smaller than GROUP BY inputs.)
 """
@@ -56,10 +55,8 @@ def segment_starts_ends_dense(group_ids_sorted: jax.Array,
     with no holes, padding >= num_groups_cap) — the shape group_by_sort
     emits.  One small 2-operand sort replaces the 100M-row merge
     searchsorted: each group's first-row position sorts directly into its
-    rank slot (ranks are unique), and ends[g] = starts[g+1].  Measured
-    ~0.81 s -> ~0.4 s per 100M x 2M grouping on v5e; TPU scatter (90 ns per
-    update over all rows) and binary search (46 ns per probe into an
-    HBM-resident table) both lose."""
+    rank slot (ranks are unique), and ends[g] = starts[g+1] — no scatter
+    over all rows and no binary search per row."""
     n = group_ids_sorted.shape[0]
     gid = group_ids_sorted
     boundary = jnp.concatenate([jnp.ones((1,), jnp.bool_),
@@ -187,8 +184,8 @@ def seg_reduce_sorted(op: str, data: jax.Array, group_ids_sorted: jax.Array,
         # one sort of (gid, order-token) pairs; segment ranges [starts, ends)
         # are unchanged (gid is the primary key), masked-out rows carry the
         # token sentinel and sink to each segment's tail.  The data itself
-        # does NOT ride the sort (f64 sort operands break the TPU compile
-        # helper); a position payload + two small gathers fetch the value.
+        # does NOT ride the sort; a position payload + two small gathers
+        # fetch the value.
         tok = sort_ops.order_token(data, validity=mask_sorted)
         rowpos = jnp.arange(cap, dtype=jnp.int32)
         _, _, pos2 = jax.lax.sort([group_ids_sorted, tok, rowpos],

@@ -1,20 +1,18 @@
-"""Vectorized searchsorted tuned for TPU.
+"""Vectorized searchsorted: binary search or a two-sort merge.
 
 `jnp.searchsorted`'s default binary search does len(v) * log2(len(a))
-data-dependent gathers; TPU executes random 8-byte gathers at ~20-35 ns per
-element (measured on v5e), so a 64M-query search into a 32M table costs ~37 s
-— it dominated the join/expand path.  Device sorts, in contrast, run at
-~0.5 s per 100M rows.  For large query sets we therefore compute searchsorted
-as a two-sort merge (the classic sort-join formulation, cf. the reference's
-sortedness-exploiting joins in MergeJoinTransform, but here chosen purely for
-the TPU's gather/sort cost ratio):
+data-dependent gathers.  For large query sets `searchsorted_via_sort`
+computes the same answer as a two-sort merge (the classic sort-join
+formulation, cf. the reference's sortedness-exploiting joins in
+MergeJoinTransform), with no random access at all:
 
   1. sort concat(a, v) with a tie-flag so queries land on the correct side
      of equal table entries; the answer for each query is the number of
      table entries before it (a cumsum, not a gather);
   2. sort back by original position to restore query order.
 
-Both sorts are large, regular, and MXU/VPU friendly; no random access at all.
+Which of the two is faster depends on the device and the sizes, so the
+threshold below is a tuning choice, not an invariant.
 """
 from __future__ import annotations
 
@@ -75,7 +73,8 @@ def searchsorted_seg(seg: jax.Array, key: jax.Array, qseg: jax.Array,
 
 
 def searchsorted(a: jax.Array, v: jax.Array, side: str = "left") -> jax.Array:
-    """Drop-in for jnp.searchsorted(a, v, side) picking the TPU-fast method.
+    """Drop-in for jnp.searchsorted(a, v, side): the two-sort merge for
+    large integer query sets, binary search otherwise.
 
     Returns int32 (all call sites index arrays < 2^31 rows).
     """

@@ -2,15 +2,15 @@
 
 Replaces the reference's three-stage sort (PartialSortingTransform ->
 MergeSortingTransform -> MergingSortedTransform, SortingStep.cpp:208-463) with
-single large device sorts: XLA's TPU sort is already a tiled multi-pass
-bitonic/merge network, so the reference's block/merge staging collapses into
-one `lax.sort` over the whole (padded) column set.  Top-N uses `lax.top_k`
+single large device sorts: XLA's device sort is already a multi-pass
+network over the whole array, so the reference's block/merge staging
+collapses into one `lax.sort` over the whole (padded) column set.  Top-N uses `lax.top_k`
 on an order-encoded key when the key fits 64 bits (the reference's special
 top-N row-filter path, SortingStep.cpp:339).
 
 Order encoding: every sort key column is mapped to a u64 *token* whose
 unsigned order equals the desired row order (direction + NULL placement
-folded in) — the TPU analog of comparator dispatch in sortBlock
+folded in) — the device analog of comparator dispatch in sortBlock
 (src/Interpreters/sortBlock.cpp:336).
 """
 from __future__ import annotations
@@ -38,8 +38,7 @@ def order_token(x: jax.Array, *, descending: bool = False,
         x = rank
     dt = x.dtype
     if dt in (jnp.float64, jnp.float32):
-        # f64_token/f32_token are total-order maps already (IEEE bit trick
-        # on CPU, lexicographic double-float pair on TPU).
+        # f64_token/f32_token are total-order maps of the IEEE bits already
         from .hash_ops import f32_token, f64_token
         tok = f64_token(x) if dt == jnp.float64 else f32_token(x)
     elif dt == jnp.uint64:

@@ -5,7 +5,7 @@ ClusterProxy + RemoteQueryExecutor, SURVEY.md §2.6/§2.7): tables are
 hash-partitioned across the mesh axis, and the *same* plan executor runs
 inside `shard_map` on every shard — collective-aware operators (two-stage
 aggregation via all_to_all, broadcast/shuffle joins, distributed top-k)
-insert ICI collectives exactly where the reference ships blocks over TCP.
+insert device collectives exactly where the reference ships blocks over TCP.
 
 Design notes:
   * one mesh axis ("shards") = the host/data-parallel axis; within-chip
@@ -37,22 +37,14 @@ from ..exprs.expr import ColVal
 from ..ops import hash_ops
 from ..storage.table import Table
 
-try:                                   # JAX >= 0.6 exposes it at top level
-    from jax import shard_map as _shard_map_fn
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_fn(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-except ImportError:                    # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map_fn
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_fn(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_rep=False)
-
 __all__ = ["DistributedSession", "make_mesh"]
 
 AXIS = "shards"
+
+
+def shard_map(f, mesh, in_specs, out_specs):
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = AXIS) -> Mesh:
@@ -72,7 +64,7 @@ def _splitmix64_np(x: np.ndarray) -> np.ndarray:
 class ShardedChunkStream:
     """Host-side per-shard chunk feed for a Distributed table: the same
     shard assignment as the device layout (_shard_parts_into), chunked
-    within each shard so a table larger than per-device HBM streams through
+    within each shard so a table larger than per-device memory streams through
     the sharded program chunk by chunk (reference: per-shard spill compose,
     MergingAggregatedMemoryEfficientTransform.h:24-45)."""
 
@@ -345,7 +337,9 @@ class DistributedSession(Session):
         self.mesh = mesh or make_mesh()
         self.axis = self.mesh.axis_names[0]
         self.n_shards = self.mesh.shape[self.axis]
-        self._sharded_cache: Dict[Tuple[str, str, int], Block] = {}
+        # (db, table) -> (table, version, device layout): one live layout
+        # per distributed table, so a join does not re-lay out its sides
+        self._sharded_cache: Dict[Tuple[str, str], Tuple[Table, int, Block]] = {}
 
     # -- which tables are distributed ---------------------------------------
     def _is_distributed(self, db: str, name: str) -> bool:
@@ -358,8 +352,8 @@ class DistributedSession(Session):
 
     def _sharded_block(self, db: str, name: str) -> Block:
         t = self.catalog.get_table(db, name)
-        key = (db, name, t.version)
-        blk = self._sharded_cache.get(key)
+        hit = self._sharded_cache.get((db, name))
+        blk = hit[2] if hit and hit[0] is t and hit[1] == t.version else None
         if blk is None:
             cols_np, valid_np, per_cap = self._layout_incremental(db, name, t)
             spec = NamedSharding(self.mesh, P(self.axis))
@@ -375,7 +369,7 @@ class DistributedSession(Session):
             vcol = Column(dt.UInt8, jax.device_put(jnp.asarray(valid_np), spec))
             cols["__row_valid"] = vcol
             blk = Block(cols, int(valid_np.sum()))
-            self._sharded_cache = {key: blk}   # keep one layout alive
+            self._sharded_cache[(db, name)] = (t, t.version, blk)
         return blk
 
     # -- incremental sharding (DistributedSink analog) -----------------------
@@ -423,15 +417,10 @@ class DistributedSession(Session):
                 assign = (np.arange(n, dtype=np.int64)
                           + st["rr"]) % self.n_shards
                 st["rr"] += n
-            order = np.argsort(assign, kind="stable")
-            counts = np.bincount(assign, minlength=self.n_shards)
-            off = 0
             for s in range(self.n_shards):
-                c = int(counts[s])
-                if not c:
+                sel = np.flatnonzero(assign == s)     # stable, row order
+                if not len(sel):
                     continue
-                sel = order[off:off + c]
-                off += c
                 for cname in t.schema:
                     st["chunks"][s][cname].append(
                         np.asarray(p.columns[cname])[sel])

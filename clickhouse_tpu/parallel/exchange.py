@@ -1,8 +1,8 @@
 """Repartitioning exchange over the device mesh.
 
-The TPU-native replacement for the reference's TCP scatter/gather data plane
+The device-mesh replacement for the reference's TCP scatter/gather data plane
 (RemoteQueryExecutor + DistributedSink, SURVEY.md §2.7): rows move between
-shards as an XLA `all_to_all` over ICI, routed by key hash — the same role
+shards as an XLA `all_to_all` between devices, routed by key hash — the same role
 the 256-bucket two-level aggregation convention plays in the reference's
 memory-efficient distributed merge (MergingAggregatedMemoryEfficientTransform).
 
@@ -56,8 +56,8 @@ def exchange_by_key(keys: Sequence[jax.Array], payloads: Sequence[jax.Array],
     dest = jnp.where(valid, dest, n_shards)          # padding -> dropped
 
     # Stable-sort rows by destination, then fill each destination's block of
-    # the send buffer by GATHERING from the sorted order (TPU scatter
-    # serializes; the inverse mapping slot -> sorted row is direct).
+    # the send buffer by GATHERING from the sorted order (the inverse
+    # mapping slot -> sorted row is direct).
     rowid = jnp.arange(cap, dtype=jnp.int32)
     dest_s, row_s = jax.lax.sort([dest, rowid], num_keys=1, is_stable=True)
     # per-dest row ranges via binary search over the sorted destinations

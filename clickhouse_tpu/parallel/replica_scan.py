@@ -5,7 +5,7 @@ initiator announces parts, replicas request mark ranges, failed replicas'
 ranges are reassigned
 (src/Storages/MergeTree/ParallelReplicasReadingCoordinator.cpp:778).
 
-TPU-era shape of the same contract: the scan's chunk ranges are published
+This engine's shape of the same contract: the scan's chunk ranges are published
 once in the Keeper, and replicas CLAIM ranges with ephemeral znodes —
 atomic create is the handout, ephemeral lifetime is the failure detector.
 A replica that dies (connection drop, kill) loses its ephemeral claims and

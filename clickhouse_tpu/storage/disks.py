@@ -1,6 +1,6 @@
 """Disks & object storage abstraction.
 
-TPU-native rendering of the reference's storage virtualization
+Rendering of the reference's storage virtualization
 (ref: src/Disks/IDisk.h, src/Disks/ObjectStorages/IObjectStorage.h):
 
 * `IDisk` — a named filesystem-like surface (write/read/list/remove).

@@ -5,7 +5,7 @@ part and rewrites matching queries onto them
 (src/Storages/MergeTree/MergeTreeDataSelectExecutor + ProjectionDescription,
 src/Processors/QueryPlan/Optimizations/optimizeUseAggregateProjection.cpp).
 
-TPU translation: a projection is a hidden table of PACKED MERGEABLE STATES
+Translation: a projection is a hidden table of PACKED MERGEABLE STATES
 (the -State machinery) keyed by the projection's GROUP BY columns.  Each
 insert into the base table appends a partially-aggregated slice; a matching
 query scans the hidden table and -Merges — strictly less work than scanning

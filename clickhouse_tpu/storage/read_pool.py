@@ -1,6 +1,6 @@
 """Work-stealing parallel read pool for streamed scans.
 
-TPU-native translation of the reference's dynamic read scheduling:
+Translation of the reference's dynamic read scheduling:
 
 * `MergeTreeReadPool` (ref: src/Storages/MergeTree/MergeTreeReadPool.h:22):
   parts are split into tasks, reader threads pull tasks on demand so fast

@@ -1,6 +1,6 @@
 """In-memory columnar tables built from immutable parts.
 
-The TPU-native MergeTree skeleton (reference: src/Storages/MergeTree/):
+The MergeTree skeleton (reference: src/Storages/MergeTree/):
 INSERT creates an immutable *part*; parts carry per-column min/max statistics
 used for pruning (the reference's minmax index + KeyCondition,
 src/Storages/MergeTree/KeyCondition.cpp).  Device residency: part columns are
@@ -1055,9 +1055,8 @@ class ChunkSource:
                     ).astype(np.int32)
         elif name in self.packed:
             # nibble-aligned HALF packing: value j pairs with value
-            # j + cap/2, so the device unpack is a 1-D concat (an
-            # interleaving (N,2) layout would tile-pad 2 -> 128 lanes on
-            # TPU and blow HBM 64x)
+            # j + cap/2, so the device unpack is a 1-D concat of two
+            # contiguous halves rather than a strided (N,2) layout
             w4, off, bpp = self.packed[name]
             half = cap // 2
             data = np.zeros(half * bpp, np.uint8)

@@ -1,7 +1,7 @@
 """Device-resident string predicates (core/column.py Dictionary.device_bytes
 + exprs/functions.py _device_prefix_lut).
 
-The TPU-native ColumnString: dictionary values live as an HBM-resident
+The device ColumnString: dictionary values live as a device-resident
 fixed-width byte matrix; prefix/suffix predicates compute per-unique on the
 device and reach rows through the code gather (reference: ColumnString
 offsets+chars + SIMD filters, src/Columns/ColumnsCommon.cpp:145).

@@ -55,8 +55,8 @@ class TestHash:
         assert counts.min() > 0
 
     def test_f64_token_total_order_and_roundtrip(self):
-        """CPU (IEEE) path: token order == float total order, -0.0 < +0.0,
-        NaN last; decode is the exact inverse."""
+        """Token order == float total order, -0.0 < +0.0, NaN last; decode
+        is the bit-exact inverse."""
         vals = np.concatenate([
             RNG.standard_normal(20000) * 10.0 ** RNG.integers(-300, 300,
                                                               20000),
@@ -64,8 +64,8 @@ class TestHash:
                       1.7976931348623157e308, 5e-324, np.nan])])
         tok = np.asarray(jax.jit(hash_ops.f64_token)(jnp.asarray(vals)))
         dec = np.asarray(hash_ops.f64_from_token(jnp.asarray(tok)))
-        same = (dec == vals) | (np.isnan(dec) & np.isnan(vals))
-        assert same.all()
+        np.testing.assert_array_equal(dec.view(np.uint64),
+                                      vals.view(np.uint64))
         order = np.argsort(tok, kind="stable")
         sv = vals[order]
         finite = sv[~np.isnan(sv)]
@@ -74,32 +74,6 @@ class TestHash:
         # -0.0 strictly before +0.0
         tn = np.asarray(hash_ops.f64_token(jnp.asarray([-0.0, 0.0])))
         assert tn[0] < tn[1]
-
-    def test_f64_token_double_float_encoding(self):
-        """The TPU-shaped split encoding (exercised here by calling the
-        split math directly) is injective and order-preserving on
-        double-float-representable values."""
-        vals = np.concatenate([
-            RNG.standard_normal(20000) * 10.0 ** RNG.integers(-30, 30, 20000),
-            np.array([0.0, -0.0, 1.0, -1.0, np.pi, 1e30, -1e30])])
-        hi = vals.astype(np.float32)
-        lo = (vals - hi.astype(np.float64)).astype(np.float32)
-
-        def o32(b):
-            s = b >> np.uint32(31)
-            return np.where(s == 1, ~b, b | np.uint32(0x80000000)) \
-                .astype(np.uint64)
-
-        tok = (o32(hi.view(np.uint32)) << np.uint64(32)) \
-            | o32(lo.view(np.uint32))
-        rep = hi.astype(np.float64) + lo.astype(np.float64)
-        order = np.argsort(tok, kind="stable")
-        assert (np.diff(rep[order]) >= 0).all()
-        # injective on distinct representations
-        u, c = np.unique(tok, return_counts=True)
-        dup_tok = u[c > 1]
-        for t in dup_tok:
-            assert len(np.unique(rep[tok == t])) == 1
 
 
 class TestFilter:

@@ -1,5 +1,5 @@
-"""Vector similarity on the MXU (exprs/functions_ext.py _register_distance
-mxu paths — the TPU-native answer to the reference's HNSW index,
+"""Vector similarity as matrix products (exprs/functions_ext.py
+_register_distance matmul paths — the answer to the reference's HNSW index,
 ref src/Storages/MergeTree/MergeTreeIndexVectorSimilarity.cpp): distances
 over a big (N, D) vector column become f32 matmuls; ORDER BY distance
 LIMIT k is matmul -> device top-k, exact (no graph approximation)."""
@@ -17,7 +17,7 @@ def session():
               "'cosineDistance') GRANULARITY 4) "
               "ENGINE = MergeTree ORDER BY id")
     rng = np.random.default_rng(0)
-    N, D = 100_000, 32               # above the MXU fast-path threshold
+    N, D = 100_000, 32               # above the matmul fast-path threshold
     V = rng.normal(size=(N, D)).astype(np.float32)
     s.insert_pydict("vecs", {"id": np.arange(N, dtype=np.int64), "v": V})
     return s, V
